@@ -1,9 +1,9 @@
 """Batch-mode throughput benchmark (BASELINE.json config 5).
 
-Streams B independent (Seq1, Seq2) queries through the batched Pallas path
-(lax.scan over sweeps, winners reduced in-graph — only (B,3) scalars leave the
-device) and reports queries/s and aggregate pair-evals/s.  A sample of winners
-is verified against the exact host oracle.
+Streams B independent (Seq1, Seq2) queries through the exact batched device
+path (one sweep-kernel grid per microbatch + in-graph top-k epilogue + exact
+host selection) and reports queries/s and aggregate pair-evals/s.  A sample
+of winners is verified against the exact host oracle.
 
 Usage: python benchmarks/batch_bench.py [--batch 1000] [--n1 2048] [--n2 512]
 """
@@ -37,15 +37,14 @@ def main():
 
     import jax
 
-    from psa_tpu.utils.cache import enable_compilation_cache
+    from psa.utils.cache import enable_compilation_cache
     enable_compilation_cache()
 
-    from psa_tpu.core.alphabet import pad_codes
-    from psa_tpu.core.tables import build_tables
-    from psa_tpu.models.batch import batched_pallas_winners
-    from psa_tpu.ops.pallas_sweep import plan_shapes
-    from psa_tpu.utils.generator import random_sequences
-    from psa_tpu.core.alphabet import encode
+    from psa.core.alphabet import pad_codes
+    from psa.core.tables import build_tables
+    from psa.ops.common import plan_shapes
+    from psa.utils.generator import random_sequences
+    from psa.core.alphabet import encode
 
     B, n1, n2 = args.batch, args.n1, args.n2
     tables = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False)
@@ -59,12 +58,10 @@ def main():
     noffs = np.full(B, n1 - n2 + 1, np.int32)
     log(f"[batch] B={B} n1={n1} n2={n2} (noff_pad={noff_pad}, l2p={l2p})")
 
-    # PRIMARY: bit-exact batched path — fused single-pallas_call kernel,
-    # packed single-upload/single-fetch, microbatched 2-deep pipeline, host
-    # sequential re-score (models/batch.batched_search_exact).  Measured
-    # FASTER than the f32-ranked path since the packed-RPC work (the f32
-    # path still fetches three arrays).
-    from psa_tpu.models.batch import batched_search_exact
+    # bit-exact batched path: one kernel grid per microbatch, packed
+    # single-upload/single-fetch, pipelined microbatches, host sequential
+    # re-score (models/batch.batched_search_exact)
+    from psa.models.batch import batched_search_exact
 
     n2s = np.full(B, n2, np.int32)
     t0 = time.perf_counter()
@@ -78,23 +75,11 @@ def main():
     log(f"[batch] exact fused path: {B} queries in {dt_exact:.3f}s -> "
         f"{B/dt_exact:.1f} q/s")
 
-    # secondary: f32-ranked in-graph winners (legacy throughput path)
-    t0 = time.perf_counter()
-    res = batched_pallas_winners(c1b, c2b, noffs, tables)
-    offsets = np.asarray(res[0])
-    first = time.perf_counter() - t0
-    log(f"[batch] f32 first call (compile+run): {first:.1f}s")
-
-    t0 = time.perf_counter()
-    res = batched_pallas_winners(c1b, c2b, noffs, tables)
-    offsets, maxranks, totals = (np.asarray(x) for x in res)
-    dt = time.perf_counter() - t0
-
     # verify exact-path winners (full tuple) against the per-query oracle
-    from psa_tpu.core.oracle import offset_stats_numpy
-    from psa_tpu.ops.select import select_best
+    from psa.core.oracle import offset_stats_numpy
+    from psa.ops.select import select_best
 
-    bad = f32_bad = 0
+    bad = 0
     idxs = (np.arange(B) if n_verify is None
             else np.linspace(0, B - 1, min(n_verify, B)).astype(int))
     for q in idxs:
@@ -106,8 +91,6 @@ def main():
         if got != (ref.offset, ref.char_offset, ref.sub_code, ref.score):
             bad += 1
             log(f"[batch] EXACT MISMATCH q={q}: got {r} want {ref}")
-        if int(offsets[q]) != ref.offset:
-            f32_bad += 1
     pair_evals = float(B) * (n1 - n2 + 1) * n2
     out = {
         "metric": "batch_queries_per_sec",
@@ -117,14 +100,11 @@ def main():
             "batch": B, "n1": n1, "n2": n2,
             "seconds": dt_exact,
             "pair_evals_per_sec": pair_evals / dt_exact,
-            "f32_queries_per_sec": B / dt,
             "verified": int(len(idxs) - bad), "mismatches": int(bad),
-            "f32_path_offset_mismatches": int(f32_bad),
         },
     }
     log(f"[batch] exact {B/dt_exact:.1f} q/s ({pair_evals/dt_exact:.3g} "
-        f"pair-evals/s), f32 {B/dt:.1f} q/s; exact path verified "
-        f"{len(idxs)-bad}/{len(idxs)}")
+        f"pair-evals/s); verified {len(idxs)-bad}/{len(idxs)}")
     print(json.dumps(out))
     return 1 if bad else 0
 

@@ -1,13 +1,13 @@
 """North-star workload harness (BASELINE.md): 100k-char Seq1, 10k-char Seq2.
 
 This exceeds the reference's hard caps (def.h:35-38: 10,000 / 5,000) by 10x —
-the TPU build's shapes are bucketed, not bounded.  The run goes through the
-full production path: offset-axis sharding over every available device
-(parallel/mesh.search_sharded, pallas kernel on TPU), exact host selection,
-and a parity check of the complete winner tuple against the native
-reference-semantics engine.
+shapes here are bucketed, not bounded.  The run goes through the full
+production path: offset-axis sharding over every available device
+(parallel/mesh.search_sharded, the sweep kernel on a GPU), exact host
+selection, and a parity check of the complete winner tuple against the
+native reference-semantics engine.
 
-Emits one JSON line; commit it as NORTHSTAR_r{N}.json for the record.
+Emits one JSON line.
 
 Usage: python benchmarks/northstar.py [--n1 100000] [--n2 10000] [--iters 4]
 """
@@ -15,7 +15,6 @@ Usage: python benchmarks/northstar.py [--n1 100000] [--n2 10000] [--iters 4]
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import sys
 import time
@@ -36,16 +35,15 @@ def main():
     args = ap.parse_args()
 
     import jax
-    import jax.numpy as jnp
 
-    from psa_tpu.utils.cache import enable_compilation_cache
+    from psa.utils.cache import enable_compilation_cache
     enable_compilation_cache()
 
-    from psa_tpu.core.alphabet import encode
-    from psa_tpu.core.tables import build_tables
-    from psa_tpu.parallel.mesh import (make_mesh, make_sharded_stats_fn,
+    from psa.core.alphabet import encode
+    from psa.core.tables import build_tables
+    from psa.parallel.mesh import (make_mesh, make_sharded_stats_fn,
                                        pad_for_mesh, search_sharded)
-    from psa_tpu.utils.generator import random_sequences
+    from psa.utils.generator import random_sequences
 
     n1, n2 = args.n1, args.n2
     platform = jax.devices()[0].platform
@@ -70,29 +68,23 @@ def main():
 
     parity = None
     if not args.skip_verify:
-        from psa_tpu.native import search_native
+        from psa.native import search_native
 
         ref = search_native(c1, c2, tables)
         parity = (res.offset, res.char_offset, res.sub_code, res.score) == (
             ref.offset, ref.char_offset, ref.sub_code, ref.score)
         log(f"[northstar] native-engine parity: {'OK' if parity else 'FAIL'}")
 
-    # device-only sweep throughput (chained-materialized, docs/DESIGN.md §6)
+    # device-only sweep time: median of warm calls, each block_until_ready
     c1p, c2p, _ = pad_for_mesh(c1, c2, ndev)
     stats_fn = make_sharded_stats_fn(tables, mesh, c1p.shape[0], c2p.shape[0])
-    a, b = jnp.asarray(c1p), jnp.asarray(c2p)
-
-    @functools.partial(jax.jit, static_argnames=("k",))
-    def chained(a, b, k):
-        def body(i, acc):
-            s = stats_fn(a, jnp.roll(b, i))
-            return acc + s[0, 0] + s[-1, 4]
-        return jax.lax.fori_loop(0, k, body, jnp.int32(0))
-
-    np.asarray(chained(a, b, args.iters))
-    t0 = time.perf_counter()
-    np.asarray(chained(a, b, args.iters))
-    dt = (time.perf_counter() - t0) / args.iters
+    jax.block_until_ready(stats_fn(c1p, c2p))
+    ts = []
+    for _ in range(args.iters):
+        t0 = time.perf_counter()
+        jax.block_until_ready(stats_fn(c1p, c2p))
+        ts.append(time.perf_counter() - t0)
+    dt = float(np.median(ts))
     log(f"[northstar] device sweep: {dt*1e3:.1f} ms, {pair_evals/dt:.3g} evals/s")
 
     print(json.dumps({

@@ -46,11 +46,11 @@ def main():
 
     import numpy as np
 
-    from psa_tpu.core.alphabet import OTHER_CODE
-    from psa_tpu.core.oracle import offset_stats_numpy
-    from psa_tpu.core.tables import build_tables
-    from psa_tpu.models.search import AlignmentSearchEngine
-    from psa_tpu.ops.pallas_sweep import offset_stats_pallas
+    from psa.core.alphabet import OTHER_CODE
+    from psa.core.oracle import offset_stats_numpy
+    from psa.core.tables import build_tables
+    from psa.models.search import AlignmentSearchEngine
+    from psa.ops.pallas_sweep import offset_stats_pallas
 
     rng = np.random.default_rng(args.seed)
 
@@ -136,8 +136,8 @@ def main():
             jax.clear_caches()
 
     # --- regime 3: batched exact path vs per-query -------------------------
-    from psa_tpu.core.alphabet import pad_codes
-    from psa_tpu.models.batch import batched_search_exact
+    from psa.core.alphabet import pad_codes
+    from psa.models.batch import batched_search_exact
 
     n_r3 = max(args.cases // 10, 2)
     for case in range(n_r3):
@@ -148,7 +148,7 @@ def main():
         t = build_tables(w, is_max)
         B = int(rng.integers(2, 9))
         noff = n1 - n2 + 1
-        from psa_tpu.ops.pallas_sweep import plan_shapes
+        from psa.ops.common import plan_shapes
 
         _, noff_pad, l2p, l1k = plan_shapes(n1, n2)
         if rng.random() < 0.3:
@@ -166,7 +166,7 @@ def main():
         rs = batched_search_exact(c1b, c2b, noffs, n2s, t, interpret=True,
                                   micro_b=int(rng.choice([4, 1024])))
         ref_eng = AlignmentSearchEngine(w, is_max, backend="numpy")
-        from psa_tpu.core.result import NoMutationFound
+        from psa.core.result import NoMutationFound
 
         for q in range(B):
             n_batch += 1
@@ -189,14 +189,14 @@ def main():
         log(f"[campaign] batch {case+1}/{n_r3} "
             f"({time.perf_counter()-t0:.0f}s)")
         if case % 10 == 9:
-            from psa_tpu.models import batch as _bm
+            from psa.models import batch as _bm
 
             _bm.reset_runner_caches()   # runners + warm flags together
             jax.clear_caches()
 
     # --- regime 4: mesh-sharded exact batch path ---------------------------
-    from psa_tpu.models.batch import batched_search_exact_sharded
-    from psa_tpu.parallel.mesh import make_mesh
+    from psa.models.batch import batched_search_exact_sharded
+    from psa.parallel.mesh import make_mesh
 
     n_r4 = max(args.cases // 20, 2)
     n_sharded = 0
@@ -208,7 +208,7 @@ def main():
         t = build_tables(w, is_max)
         B = int(rng.integers(2, 10))
         ndev = int(rng.choice([2, 4, 8]))
-        from psa_tpu.ops.pallas_sweep import plan_shapes
+        from psa.ops.common import plan_shapes
 
         _, noff_pad, l2p, l1k = plan_shapes(n1, n2)
         c1b = np.stack([pad_codes(random_codes(n1, 0.05), l1k)
@@ -240,7 +240,7 @@ def main():
                                    "is_max": is_max})
         log(f"[campaign] sharded {case+1}/{n_r4} (ndev={ndev}, "
             f"{time.perf_counter()-t0:.0f}s)")
-        from psa_tpu.models import batch as _bm
+        from psa.models import batch as _bm
 
         _bm.reset_runner_caches()
         jax.clear_caches()
@@ -248,7 +248,7 @@ def main():
     # --- regime 5: serve protocol end-to-end -------------------------------
     import subprocess
 
-    from psa_tpu.core.alphabet import decode
+    from psa.core.alphabet import decode
 
     n_r5 = max(args.cases // 10, 10)
     n_serve = 0
@@ -270,7 +270,7 @@ def main():
             bad = float("-inf") if is_max else float("inf")
             wants.append("-1 %g %s" % (bad, s2))
     proc = subprocess.run(
-        [sys.executable, "-m", "psa_tpu.utils.cli", "--serve", "--quiet",
+        [sys.executable, "-m", "psa.utils.cli", "--serve", "--quiet",
          "--platform", "cpu", "--backend", "native"],
         input="\n".join(lines) + "\n", capture_output=True, text=True,
         timeout=600)
@@ -289,7 +289,7 @@ def main():
         f"({time.perf_counter()-t0:.0f}s)")
 
     # --- regime 6: hybrid host+device split vs the oracle -------------------
-    from psa_tpu.models.search import native_available
+    from psa.models.search import native_available
 
     n_r6 = max(args.cases // 10, 4) if native_available() else 0
     n_hybrid = 0
@@ -324,81 +324,8 @@ def main():
     log(f"[campaign] hybrid {n_hybrid} cases "
         f"({time.perf_counter()-t0:.0f}s)")
 
-    # --- regime 7: oversized streaming kernel paths -------------------------
-    # Seq1 beyond the VMEM-resident budget (the B=1 HBM-streaming
-    # _sweep_pallas_hbm1 route) and Seq2 beyond the resident scratch budget
-    # (the batched kernel's non-resident per-chunk-window branch), both
-    # forced by shrinking the budgets so interpret-mode shapes stay small.
-    # Each was verified once by hand on hardware (1M x 2048 / 600k x 250k);
-    # this guards them against regressions on every campaign run.
-    import psa_tpu.ops.pallas_sweep as ps
-    from psa_tpu.models.batch import batched_search_exact as _bse
-
-    n_stream = 0
-    n_r7 = max(args.cases // 40, 2)
-    saved = (ps.MAX_L1_VMEM, ps.RESIDENT_L2_BUDGET)
-    try:
-        for case in range(n_r7):
-            w = random_weights()
-            is_max = bool(rng.integers(0, 2))
-            t = build_tables(w, is_max)
-
-            # 7a: Seq1-streaming stats (hbm1 B=1 route) vs the oracle
-            ps.MAX_L1_VMEM, ps.RESIDENT_L2_BUDGET = 1024, saved[1]
-            n2 = int(rng.integers(200, 600))
-            n1 = n2 + int(rng.integers(4000, 9000))
-            c1, c2 = random_codes(n1, 0.05), random_codes(n2, 0.05)
-            counts, maxrank = ps.offset_stats_pallas(c1, c2, t,
-                                                     interpret=True)
-            rc, rm = offset_stats_numpy(c1, c2, t)
-            n_stream += 1
-            if not (np.array_equal(counts, rc)
-                    and np.array_equal(maxrank, rm)):
-                mismatches.append({"regime": "streaming-seq1", "case": case,
-                                   "w": w.tolist(), "is_max": is_max})
-
-            # 7b: Seq2 non-resident batched branch, end-to-end exact
-            ps.MAX_L1_VMEM, ps.RESIDENT_L2_BUDGET = saved[0], 1024
-            n2 = int(rng.integers(300, 700))
-            n1 = n2 + int(rng.integers(500, 2000))
-            _, noff_pad, l2p, l1k = plan_shapes(n1, n2)
-            B = int(rng.integers(2, 5))
-            c1b = np.stack([pad_codes(random_codes(n1, 0.05), l1k)
-                            for _ in range(B)])
-            c2b = np.stack([pad_codes(random_codes(n2, 0.05), l2p)
-                            for _ in range(B)])
-            assert not ps._batched_resident(ps.pick_tile(noff_pad), l2p)
-            rs = _bse(c1b, c2b, np.full(B, n1 - n2 + 1, np.int32),
-                      np.full(B, n2, np.int32), t, interpret=True)
-            ref_eng = AlignmentSearchEngine(w, is_max, backend="numpy")
-            for q in range(B):
-                n_stream += 1
-                try:
-                    r = ref_eng.search_codes(c1b[q][:n1], c2b[q][:n2])
-                    want = (r.offset, r.char_offset, r.sub_code, r.score)
-                except NoMutationFound:
-                    want = None
-                except Exception as ex:  # noqa: BLE001
-                    want = type(ex).__name__
-                got = rs[q]
-                got = (None if got is None else
-                       (got.offset, got.char_offset, got.sub_code, got.score))
-                if got != want:
-                    mismatches.append({"regime": "streaming-seq2",
-                                       "case": case, "q": q,
-                                       "got": str(got), "want": str(want),
-                                       "w": w.tolist(), "is_max": is_max})
-            log(f"[campaign] streaming {case+1}/{n_r7} "
-                f"({time.perf_counter()-t0:.0f}s)")
-            from psa_tpu.models import batch as _bm
-
-            _bm.reset_runner_caches()
-            jax.clear_caches()
-    finally:
-        ps.MAX_L1_VMEM, ps.RESIDENT_L2_BUDGET = saved
-
     # --- regime 8: 2-D (op x ch) mesh search vs the oracle ------------------
-    from psa_tpu.parallel.mesh import make_mesh_2d, search_sharded_2d
+    from psa.parallel.mesh import make_mesh_2d, search_sharded_2d
 
     n_r8 = max(args.cases // 20, 3)
     n_2d = 0
@@ -440,7 +367,7 @@ def main():
         "checks": {"e2e": n_e2e, "multitile_stats": n_stats,
                    "batch_queries": n_batch, "sharded_queries": n_sharded,
                    "serve_queries": n_serve, "hybrid": n_hybrid,
-                   "streaming": n_stream, "mesh2d": n_2d},
+                   "mesh2d": n_2d},
         "mismatches": mismatches,
         "ok": not mismatches,
         "seconds": round(time.perf_counter() - t0, 1),

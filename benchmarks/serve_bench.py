@@ -54,7 +54,7 @@ def main():
                          "through the timed wave — measures cold-bucket tail "
                          "latency under the warmup + host-routing machinery "
                          "(replies must come from the host engine instead of "
-                         "waiting out a Mosaic compile)")
+                         "waiting out a compile)")
     ap.add_argument("--shared-s1", action="store_true",
                     help="every query uses ONE shared Seq1 (the many-reads-"
                          "vs-one-reference pattern): the serve path then "
@@ -67,7 +67,7 @@ def main():
                  "modes would silently mix host-routed cold replies into "
                  "the q/s number with no breakdown)")
 
-    from psa_tpu.utils.generator import random_sequences
+    from psa.utils.generator import random_sequences
 
     B, n1, n2 = args.batch, args.n1, args.n2
     log(f"[serve_bench] generating {B} query lines ({n1}x{n2})")
@@ -81,7 +81,7 @@ def main():
         lines.append(f"1 3 4 2 {s1} {s2} minimum")
     payload = "\n".join(lines) + "\n"
 
-    cmd = [sys.executable, "-m", "psa_tpu.utils.cli", "--serve", "--quiet",
+    cmd = [sys.executable, "-m", "psa.utils.cli", "--serve", "--quiet",
            "--serve-batch", str(args.serve_batch),
            "--backend", args.backend]
     if args.platform:
@@ -155,9 +155,9 @@ def main():
 
     n_bad = 0
     if args.verify:
-        from psa_tpu.models.search import AlignmentSearchEngine
+        from psa.models.search import AlignmentSearchEngine
 
-        from psa_tpu.core.result import NoMutationFound
+        from psa.core.result import NoMutationFound
 
         eng = AlignmentSearchEngine(np.array([1.0, 3.0, 4.0, 2.0]), False,
                                     backend="native")
@@ -270,7 +270,7 @@ def run_tcp(args, cmd, lines):
     B = len(lines)
     timed = [(q, False) for q in lines]
     if args.cold_inject:
-        from psa_tpu.utils.generator import random_sequences as _rs
+        from psa.utils.generator import random_sequences as _rs
 
         # a fresh (n1+1024, n2) shape = a new padded bucket the server has
         # never compiled; spread the injections through the middle of the
@@ -288,8 +288,8 @@ def run_tcp(args, cmd, lines):
 
     n_bad = 0
     if args.verify:
-        from psa_tpu.core.result import NoMutationFound
-        from psa_tpu.models.search import AlignmentSearchEngine
+        from psa.core.result import NoMutationFound
+        from psa.models.search import AlignmentSearchEngine
 
         eng = AlignmentSearchEngine(np.array([1.0, 3.0, 4.0, 2.0]), False,
                                     backend="native")

@@ -1,6 +1,6 @@
-"""Library quickstart: the three public surfaces of psa_tpu.
+"""Library quickstart: the three public surfaces of psa.
 
-Run: python examples/library_usage.py        (CPU-safe; ~seconds)
+Run: PYTHONPATH=. python examples/library_usage.py        (CPU-safe; ~seconds)
 
 Reference workflow analog: main.c:13-56 (read input -> search -> write),
 but as a library — the reference has no importable API at all.
@@ -11,10 +11,11 @@ import os
 import numpy as np
 
 # Force CPU with 8 virtual devices so the example runs (and demonstrates
-# sharding) anywhere without a TPU warm-up; delete this block on a real
-# TPU host.
+# sharding) anywhere, with the device kernel in Pallas interpret mode;
+# delete this block on a GPU host.
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=8")
+os.environ["PSA_INTERPRET"] = "1"
 import jax
 
 jax.config.update("jax_platforms", "cpu")
@@ -22,8 +23,8 @@ jax.config.update("jax_platforms", "cpu")
 
 def single_query():
     """One (Seq1, Seq2) search with the reference's exact semantics."""
-    from psa_tpu.models.search import AlignmentSearchEngine
-    from psa_tpu.utils.generator import random_sequences
+    from psa.models.search import AlignmentSearchEngine
+    from psa.utils.generator import random_sequences
 
     seq1, seq2 = random_sequences(5_000, 800, seed=0)
     # weights = (w1, w2, w3, w4); False = minimum mode ("maximum" -> True)
@@ -37,9 +38,9 @@ def single_query():
 
 def batch_serving():
     """Many queries at once: bucketed by shape, streamed in microbatches."""
-    from psa_tpu.models.batch import search_batch
-    from psa_tpu.utils.generator import random_sequences
-    from psa_tpu.utils.io import Query
+    from psa.models.batch import search_batch
+    from psa.utils.generator import random_sequences
+    from psa.utils.io import Query
 
     queries = []
     for seed, (n1, n2) in enumerate([(3_000, 500), (3_000, 500),
@@ -56,10 +57,10 @@ def batch_serving():
 def sharded_multichip():
     """Offset axis sharded over every local device (mesh analog of the
     reference's MPI split, cpu_funcs.c:128-133)."""
-    from psa_tpu.core.alphabet import encode
-    from psa_tpu.core.tables import build_tables
-    from psa_tpu.parallel.mesh import search_sharded
-    from psa_tpu.utils.generator import random_sequences
+    from psa.core.alphabet import encode
+    from psa.core.tables import build_tables
+    from psa.parallel.mesh import search_sharded
+    from psa.utils.generator import random_sequences
 
     seq1, seq2 = random_sequences(20_000, 2_000, seed=1)
     tables = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False)
@@ -73,10 +74,10 @@ def sharded_auto_2d():
     axis (counts psum_scatter + rank pmax over Seq2 chunks, exact by
     construction); long-Seq1 searches stay offset-sharded.  This is what
     the CLI --sharded flag routes through."""
-    from psa_tpu.core.alphabet import encode
-    from psa_tpu.core.tables import build_tables
-    from psa_tpu.parallel.mesh import choose_mesh_shape, search_sharded_auto
-    from psa_tpu.utils.generator import random_sequences
+    from psa.core.alphabet import encode
+    from psa.core.tables import build_tables
+    from psa.parallel.mesh import choose_mesh_shape, search_sharded_auto
+    from psa.utils.generator import random_sequences
 
     seq1, seq2 = random_sequences(6_000, 2_000, seed=2)
     tables = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False)
@@ -90,11 +91,11 @@ def sharded_auto_2d():
 def sharded_batch_serving():
     """Query axis sharded over every local device: each device sweeps its
     own block of queries (no collectives), selection stays bit-exact."""
-    from psa_tpu.core.alphabet import encode, pad_codes
-    from psa_tpu.core.tables import build_tables
-    from psa_tpu.models.batch import batched_search_exact_sharded
-    from psa_tpu.parallel.mesh import make_mesh
-    from psa_tpu.utils.generator import random_sequences
+    from psa.core.alphabet import encode, pad_codes
+    from psa.core.tables import build_tables
+    from psa.models.batch import batched_search_exact_sharded
+    from psa.parallel.mesh import make_mesh
+    from psa.utils.generator import random_sequences
 
     n1, n2, l2p = 1_000, 120, 128
     l1k = 1024 + l2p

@@ -3,10 +3,10 @@
 Run as: python _dist_worker.py <pid> <nproc> <port> <input> <outdir> [ndev]
 
 ndev (default 1) forces that many local virtual CPU devices per process —
-ndev > 1 exercises the pod shape where the global mesh mixes local (ICI)
-and cross-process (DCN) device axes.
+ndev > 1 exercises the shape where the global mesh mixes local
+and cross-process device axes.
 
-Counts the actual DCN primitive calls (broadcast_one_to_all from
+Counts the actual cross-process primitive calls (broadcast_one_to_all from
 broadcast_query, process_allgather from search_sharded's multi-process
 branch) to prove the non-degenerate code paths executed, then runs the full
 distributed search.  Rank != 0 receives a nonexistent input path — it can
@@ -16,7 +16,7 @@ only produce the right answer via the broadcast.
 import os
 import sys
 
-# Workers must import psa_tpu even when the package isn't pip-installed
+# Workers must import psa even when the package isn't pip-installed
 # (fresh checkouts): fall back to the repo root two levels up.
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -50,7 +50,7 @@ def _counted_ag(*a, **k):
 mh.broadcast_one_to_all = _counted_b
 mh.process_allgather = _counted_ag
 
-from psa_tpu.parallel import multihost  # noqa: E402
+from psa.parallel import multihost  # noqa: E402
 
 multihost.initialize(f"localhost:{port}", nproc, pid)
 assert jax.process_count() == nproc, jax.process_count()

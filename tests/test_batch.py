@@ -5,16 +5,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from psa_tpu.core.alphabet import pad_codes
-from psa_tpu.core.oracle import offset_stats_numpy
-from psa_tpu.core.tables import build_tables
-from psa_tpu.models.batch import (
+from psa.core.alphabet import pad_codes
+from psa.core.oracle import offset_stats_numpy
+from psa.core.tables import build_tables
+from psa.models.batch import (
     batched_device_winners,
     batched_sharded_stats,
     batched_search_step,
     make_mesh_2d,
 )
-from psa_tpu.ops.select import select_best
+from psa.ops.select import select_best
 
 from conftest import random_codes
 

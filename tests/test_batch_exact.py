@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from psa_tpu.core.alphabet import encode, pad_codes
-from psa_tpu.core.oracle import offset_stats_numpy
-from psa_tpu.core.tables import build_tables
-from psa_tpu.models.batch import batched_search_exact, search_batch
-from psa_tpu.ops.select import select_best
-from psa_tpu.utils.io import parse_cases, read_cases, read_input
+from psa.core.alphabet import encode, pad_codes
+from psa.core.oracle import offset_stats_numpy
+from psa.core.tables import build_tables
+from psa.models.batch import batched_search_exact, search_batch
+from psa.ops.select import select_best
+from psa.utils.io import parse_cases, read_cases, read_input
 
 from conftest import GOLDEN_INPUT, random_codes, random_seq
 
@@ -27,16 +27,18 @@ def _batch(rng, B, n1, n2, l1k, l2p):
 
 
 @pytest.mark.parametrize("is_max", [False, True])
-@pytest.mark.parametrize("fused", [True, False])
-def test_batched_exact_matches_single_query(is_max, fused):
+@pytest.mark.parametrize("shared", [True, False])
+def test_batched_exact_matches_single_query(is_max, shared):
     rng = np.random.default_rng(11)
     t = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), is_max)
     n1, n2, l2p = 700, 120, 128
-    l1k = 1024 + l2p          # noff=581 -> noff_pad=1024 (multiple of 512)
+    l1k = 768 + l2p           # noff=581 -> noff_pad=768 (3 offset tiles)
     B = 6
     c1b, c2b, noffs, n2s = _batch(rng, B, n1, n2, l1k, l2p)
+    if shared:                # one Seq1 row read by every query
+        c1b[:] = c1b[0]
     res = batched_search_exact(c1b, c2b, noffs, n2s, t, interpret=True,
-                               fused=fused)
+                               shared_s1=shared)
     assert len(res) == B
     for q in range(B):
         c1, c2 = c1b[q][: n1], c2b[q][: n2]
@@ -54,8 +56,8 @@ def test_batched_exact_sharded_mesh_size_independent(ndev, tables_min):
     PAD rows) and a no-mutation query."""
     import jax
 
-    from psa_tpu.models.batch import batched_search_exact_sharded
-    from psa_tpu.parallel.mesh import make_mesh
+    from psa.models.batch import batched_search_exact_sharded
+    from psa.parallel.mesh import make_mesh
 
     rng = np.random.default_rng(23)
     n1, n2, l2p = 700, 120, 128
@@ -119,8 +121,8 @@ def test_batched_exact_no_mutation():
 
 def test_search_batch_mixed_sizes_host_path():
     """Bucketed mixed-size batch on the host path == per-query engine."""
-    from psa_tpu.models.search import AlignmentSearchEngine
-    from psa_tpu.utils.io import Query
+    from psa.models.search import AlignmentSearchEngine
+    from psa.utils.io import Query
 
     rng = np.random.default_rng(5)
     specs = [(300, 40, False), (300, 40, True), (900, 200, False),
@@ -141,11 +143,11 @@ def test_search_batch_mixed_sizes_host_path():
 def test_search_batch_auto_is_workload_aware(monkeypatch):
     """`--backend auto` routes small buckets to the host engine and big
     buckets to the device path, per bucket (cpu_funcs.c:135-142 analog)."""
-    from psa_tpu.config import CONFIG
-    from psa_tpu.models import batch as batch_mod
-    from psa_tpu.models.search import AlignmentSearchEngine
-    from psa_tpu.utils import health
-    from psa_tpu.utils.io import Query
+    from psa.config import CONFIG
+    from psa.models import batch as batch_mod
+    from psa.models.search import AlignmentSearchEngine
+    from psa.ops import device
+    from psa.utils.io import Query
 
     rng = np.random.default_rng(7)
     queries = [
@@ -154,15 +156,15 @@ def test_search_batch_auto_is_workload_aware(monkeypatch):
               is_max=False)
         for _ in range(3)
     ]
-    monkeypatch.setattr(health, "effective_platform", lambda *a, **k: "tpu")
+    monkeypatch.setattr(device, "accelerator_present", lambda: True)
 
     device_calls = []
 
     def fake_device(c1b, c2b, noffs, n2s, tables, **kw):
         device_calls.append(len(noffs))
-        return [None] * len(noffs)
+        return [], lambda: [None] * len(noffs)
 
-    monkeypatch.setattr(batch_mod, "batched_search_exact", fake_device)
+    monkeypatch.setattr(batch_mod, "batched_search_exact_async", fake_device)
 
     # bucket total 3*(261*40) = 31,320 pair-evals < threshold -> host path
     monkeypatch.setattr(CONFIG, "auto_threshold", 200_000_000)
@@ -180,13 +182,13 @@ def test_search_batch_auto_is_workload_aware(monkeypatch):
 
 def test_parse_cases_golden_scratchpad():
     cases = read_cases(GOLDEN_INPUT)
-    assert len(cases) == 15
+    assert len(cases) == 5
     first = read_input(GOLDEN_INPUT)
     assert cases[0].seq1 == first.seq1 and cases[0].seq2 == first.seq2
     assert cases[0].is_max == first.is_max
-    # input.txt:29-32 is README example 1 (SURVEY.md §4)
-    assert len(cases[4].seq1) == 54 and len(cases[4].seq2) == 30
-    assert cases[4].is_max
+    # psa-gen --cases: one seed per record, all the same shape and mode
+    assert len(cases[4].seq1) == 9711 and len(cases[4].seq2) == 2131
+    assert not cases[4].is_max and cases[4].seq1 != first.seq1
 
 
 def test_parse_cases_rejects_empty():
@@ -208,7 +210,7 @@ def test_parse_cases_ignores_numeric_junk_tail():
 
 
 def test_cli_case_selector(tmp_path):
-    from psa_tpu.utils.cli import main
+    from psa.utils.cli import main
 
     out = tmp_path / "o.txt"
     rc = main([GOLDEN_INPUT, "-o", str(out), "--case", "4",
@@ -216,7 +218,7 @@ def test_cli_case_selector(tmp_path):
     assert rc == 0
     body = out.read_text()
     mutant, trailer = body.split("\n")
-    assert len(mutant) == 30
+    assert len(mutant) == 2131
 
     # --case 0 must byte-match the default single-case run
     out0, out_def = tmp_path / "o0.txt", tmp_path / "od.txt"
@@ -228,8 +230,8 @@ def test_cli_case_selector(tmp_path):
 
 
 def test_cli_batch_mode(tmp_path):
-    from psa_tpu.utils.cli import main
-    from psa_tpu.utils.generator import random_sequences
+    from psa.utils.cli import main
+    from psa.utils.generator import random_sequences
 
     # build a 4-case scratchpad file (two shape buckets, both modes)
     recs = []
@@ -261,8 +263,8 @@ def test_batched_exact_sharded_microbatch_pipeline(tables_min):
     micro_b) and still matches the non-sharded exact path."""
     import jax
 
-    from psa_tpu.models.batch import batched_search_exact_sharded
-    from psa_tpu.parallel.mesh import make_mesh
+    from psa.models.batch import batched_search_exact_sharded
+    from psa.parallel.mesh import make_mesh
 
     rng = np.random.default_rng(31)
     n1, n2, l2p = 700, 120, 128
@@ -284,8 +286,8 @@ def test_cli_batch_sharded_device_path(tmp_path):
     """--batch --sharded --backend pallas routes buckets through the
     mesh-sharded exact device path (interpret on CPU) and still
     byte-matches per-case single runs."""
-    from psa_tpu.utils.cli import main
-    from psa_tpu.utils.generator import random_sequences
+    from psa.utils.cli import main
+    from psa.utils.generator import random_sequences
 
     recs = []
     for seed, (n1, n2, mode) in enumerate(
@@ -314,7 +316,7 @@ def test_pack_query_inputs_roundtrip_in_graph():
     0..28 (PAD)."""
     import jax
 
-    from psa_tpu.models.batch import (_packed_words, pack_query_inputs,
+    from psa.models.batch import (_packed_words, pack_query_inputs,
                                       unpack_query_inputs)
 
     rng = np.random.default_rng(0)
@@ -353,97 +355,59 @@ def test_batched_exact_microbatch_pipeline(tables_min):
             ref.offset, ref.char_offset, ref.sub_code, ref.score), q
 
 
-def test_batched_kernel_streaming_matches_resident():
-    """The constant-VMEM per-chunk streaming variant (large-Seq2 fallback)
-    must bit-match the resident full-span variant, multi-tile and
-    multi-chunk."""
-    import jax.numpy as jnp
+def _device_bucket_queries(seed):
+    from psa.utils.io import Query
 
-    from psa_tpu.ops.pallas_sweep import _sweep_pallas_batched, pick_chunk
-
-    tables = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False)
-    rng = np.random.default_rng(11)
-    B, n1, n2 = 3, 4000, 300
-    l2p, noff_pad = 512, 4096
-    l1k = noff_pad + l2p
-    c1b = np.stack([pad_codes(random_codes(rng, n1), l1k) for _ in range(B)])
-    c2b = np.stack([pad_codes(random_codes(rng, n2), l2p) for _ in range(B)])
-    code_tab = jnp.asarray(tables.code)
-    chunk = pick_chunk(l2p)
-    nck = l2p // chunk
-    pc = code_tab.astype(jnp.int8)[:, jnp.asarray(c2b)]
-    pc_all = (pc.transpose(1, 0, 2).reshape(B, 32, nck, chunk)
-              .transpose(0, 2, 1, 3)[:, :, :, ::-1])
-    s1c = jnp.broadcast_to(
-        jnp.asarray(c1b).reshape(1, -1).astype(jnp.int8), (4, B * l1k))
-    a = np.asarray(_sweep_pallas_batched(s1c, pc_all, B, noff_pad, l2p,
-                                         True, 2048, True))
-    b = np.asarray(_sweep_pallas_batched(s1c, pc_all, B, noff_pad, l2p,
-                                         True, 2048, False))
-    np.testing.assert_array_equal(a, b)
+    rng = np.random.default_rng(seed)
+    return [Query(weights=np.array([1.0, 3.0, 4.0, 2.0]),
+                  seq1=random_seq(rng, 400), seq2=random_seq(rng, 60),
+                  is_max=False) for _ in range(3)]
 
 
-def test_search_batch_device_failure_degrades_to_host(monkeypatch, capsys):
-    """A device/tunnel failure on a bucket must degrade to the host engine
-    (correct results + warning), not fail the whole batch."""
-    from psa_tpu.models import batch as batch_mod
-    from psa_tpu.models.search import AlignmentSearchEngine
-    from psa_tpu.utils.io import Query
-
-    rng = np.random.default_rng(13)
-    queries = [
-        Query(weights=np.array([1.0, 3.0, 4.0, 2.0]),
-              seq1=random_seq(rng, 400), seq2=random_seq(rng, 60),
-              is_max=False)
-        for _ in range(3)
-    ]
+@pytest.mark.parametrize("at", ["dispatch", "fetch"])
+def test_search_batch_device_failure_raises(monkeypatch, at):
+    """A device failure on a bucket raises — at dispatch or at fetch time —
+    instead of silently answering from the host engine."""
+    from psa.models import batch as batch_mod
 
     def boom(*a, **k):
-        raise RuntimeError("tunnel gone")
+        raise RuntimeError("device lost")
 
-    monkeypatch.setattr(batch_mod, "batched_search_exact", boom)
-    got = search_batch(queries, backend="pallas")
-    err = capsys.readouterr().err
-    assert "device batch path failed" in err
-    for q, r in zip(queries, got):
-        eng = AlignmentSearchEngine(q.weights, q.is_max, backend="numpy")
-        ref = eng.search(q.seq1, q.seq2)
-        assert (r.offset, r.char_offset, r.score) == (
-            ref.offset, ref.char_offset, ref.score)
+    if at == "dispatch":
+        monkeypatch.setattr(batch_mod, "batched_search_exact_async", boom)
+    else:
+        monkeypatch.setattr(batch_mod, "batched_search_exact_async",
+                            lambda *a, **k: ([], boom))
+    with pytest.raises(RuntimeError, match="device lost"):
+        search_batch(_device_bucket_queries(13), backend="pallas")
 
 
-def test_search_batch_auto_failure_does_not_reenter_device(monkeypatch,
-                                                           capsys):
-    """After a device-bucket failure under backend=auto, the fallback must
-    resolve to a HOST engine — auto would route big queries straight back
-    into the failing device path (review finding, round 2)."""
-    from psa_tpu.config import CONFIG
-    from psa_tpu.models import batch as batch_mod
-    from psa_tpu.models.search import AlignmentSearchEngine
-    from psa_tpu.utils import health
-    from psa_tpu.utils.io import Query
+def test_search_batch_auto_device_failure_raises(monkeypatch):
+    """Under backend=auto a bucket routed to the device raises on a device
+    failure too: no bucket changes engine behind the caller's back."""
+    from psa.config import CONFIG
+    from psa.models import batch as batch_mod
+    from psa.ops import device
 
-    rng = np.random.default_rng(17)
-    queries = [
-        Query(weights=np.array([1.0, 3.0, 4.0, 2.0]),
-              seq1=random_seq(rng, 400), seq2=random_seq(rng, 60),
-              is_max=False)
-        for _ in range(2)
-    ]
-    monkeypatch.setattr(health, "effective_platform", lambda *a, **k: "tpu")
+    monkeypatch.setattr(device, "accelerator_present", lambda: True)
     monkeypatch.setattr(CONFIG, "auto_threshold", 1)  # everything -> device
 
     def boom(*a, **k):
-        raise RuntimeError("tunnel gone")
+        raise RuntimeError("device lost")
 
-    monkeypatch.setattr(batch_mod, "batched_search_exact", boom)
-    got = search_batch(queries, backend="auto")
-    assert "device batch path failed" in capsys.readouterr().err
-    for q, r in zip(queries, got):
-        eng = AlignmentSearchEngine(q.weights, q.is_max, backend="numpy")
-        ref = eng.search(q.seq1, q.seq2)
-        assert (r.offset, r.char_offset, r.score) == (
-            ref.offset, ref.char_offset, ref.score)
+    monkeypatch.setattr(batch_mod, "batched_search_exact_async", boom)
+    with pytest.raises(RuntimeError, match="device lost"):
+        search_batch(_device_bucket_queries(17), backend="auto")
+
+
+def test_search_batch_pallas_without_gpu_raises(monkeypatch):
+    """No GPU and no interpret request: the device backend raises a clear
+    error rather than interpreting or answering from the host."""
+    from psa.ops.device import DeviceUnavailableError
+
+    monkeypatch.delenv("PSA_INTERPRET", raising=False)
+    with pytest.raises(DeviceUnavailableError, match="GPU"):
+        search_batch(_device_bucket_queries(19), backend="pallas")
 
 
 def test_dispatch_window_bounds_inflight():
@@ -451,7 +415,7 @@ def test_dispatch_window_bounds_inflight():
     in flight (every enqueued buffer stays alive until its program runs, so
     unbounded up-front dispatch held O(workload) device memory) while still
     completing every span in order."""
-    from psa_tpu.models.batch import (_DISPATCH_WINDOW, _dispatch_all_spans,
+    from psa.models.batch import (_DISPATCH_WINDOW, _dispatch_all_spans,
                                       microbatch_spans)
 
     spans = microbatch_spans(33, 2)            # 17 spans of <= 2 queries
@@ -489,7 +453,7 @@ def test_pack_epilogue_outputs_compact_roundtrip():
     int16 boundary."""
     import jax.numpy as jnp
 
-    from psa_tpu.models.batch import (epilogue_compact,
+    from psa.models.batch import (epilogue_compact,
                                       pack_epilogue_outputs,
                                       unpack_epilogue_outputs)
 
@@ -522,11 +486,11 @@ def test_batched_exact_noncompact_gate_end_to_end():
     """A bucket past the int16 gate (noff_pad >= 32768) must run the
     NON-compact epilogue wire format end-to-end and still match the
     oracle — CI's other shapes all take the compact path."""
-    from psa_tpu.core.alphabet import pad_codes
-    from psa_tpu.core.oracle import offset_stats_numpy
-    from psa_tpu.core.tables import build_tables
-    from psa_tpu.models.batch import batched_search_exact, epilogue_compact
-    from psa_tpu.ops.select import select_best
+    from psa.core.alphabet import pad_codes
+    from psa.core.oracle import offset_stats_numpy
+    from psa.core.tables import build_tables
+    from psa.models.batch import batched_search_exact, epilogue_compact
+    from psa.ops.select import select_best
 
     l2p, noff_pad = 128, 32768
     l1k = noff_pad + l2p
@@ -551,7 +515,7 @@ def test_runner_cache_lru_eviction():
     """The runner caches evict least-recently-used entries past the cap so
     a long-lived server with unbounded weight diversity cannot accumulate
     XLA executables forever."""
-    from psa_tpu.models import batch as bm
+    from psa.models import batch as bm
 
     cache: dict = {}
     old = bm._RUNNER_CACHE_CAP

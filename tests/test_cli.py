@@ -6,13 +6,14 @@ import sys
 
 import pytest
 
-from psa_tpu.utils.cli import main
-from psa_tpu.utils.generator import random_sequences, write_input_file
+from conftest import GOLDEN_INPUT
+from psa.utils.cli import main
+from psa.utils.generator import random_sequences, write_input_file
 
 
 def test_cli_golden_roundtrip(tmp_path, golden_expected):
     out = tmp_path / "output.txt"
-    rc = main(["/root/reference/input.txt", "-o", str(out),
+    rc = main([GOLDEN_INPUT, "-o", str(out),
                "--backend", "native", "--quiet"])
     assert rc == 0
     assert out.read_text() == golden_expected
@@ -59,9 +60,9 @@ def test_cli_no_mutation_path(tmp_path):
     # alphabets — assert the exception path via a degenerate direct call.
     import numpy as np
 
-    from psa_tpu.core.result import NoMutationFound
-    from psa_tpu.core.tables import build_tables
-    from psa_tpu.ops.select import select_best
+    from psa.core.result import NoMutationFound
+    from psa.core.tables import build_tables
+    from psa.ops.select import select_best
 
     t = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), False)
     counts = np.zeros((4, 4), np.int32)
@@ -86,12 +87,12 @@ def test_cli_json_single(tmp_path, capsys, golden_expected):
     import json
 
     out = tmp_path / "output.txt"
-    rc = main(["/root/reference/input.txt", "-o", str(out),
+    rc = main([GOLDEN_INPUT, "-o", str(out),
                "--backend", "native", "--json"])
     assert rc == 0
     obj = json.loads(capsys.readouterr().out.strip())
     assert obj["mutation_found"] is True
-    assert obj["offset"] == 4505 and obj["score"] == -4879.0
+    assert obj["offset"] == 6132 and obj["score"] == -4688.0
     mutant_line = golden_expected.split("\n")[0]
     assert obj["mutant"] == mutant_line
     assert obj["time_s"] > 0
@@ -143,7 +144,7 @@ def test_cli_explain_runs(tmp_path):
     inp = tmp_path / "in.txt"
     write_input_file(str(inp), [1.0, 3.0, 4.0, 2.0], seq1, seq2, False)
     r = subprocess.run(
-        [sys.executable, "-m", "psa_tpu.utils.cli", str(inp),
+        [sys.executable, "-m", "psa.utils.cli", str(inp),
          "-o", str(tmp_path / "out.txt"),
          "--backend", "numpy", "--explain", "--print-table", "--quiet"],
         capture_output=True, text=True, timeout=300,

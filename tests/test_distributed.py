@@ -3,7 +3,7 @@
 Round-1 VERDICT's top gap: broadcast_query / process_allgather had only ever
 run through their process_count()==1 short-circuits.  These tests spawn two
 actual processes joined through a local coordinator (CPU backend, Gloo
-collectives) — the TPU-native stand-in for the reference's
+collectives) — the stand-in for the reference's
 `mpiexec -np 2` differential run (Makefile:18-22, README.md:240-244).
 """
 
@@ -14,7 +14,7 @@ import sys
 
 import pytest
 
-from tests.conftest import GOLDEN_INPUT, GOLDEN_OUTPUT
+from conftest import GOLDEN_INPUT, GOLDEN_OUTPUT
 
 _WORKER = os.path.join(os.path.dirname(__file__), "_dist_worker.py")
 
@@ -50,7 +50,7 @@ def _spawn(cmds, timeout=180, extra_env=None):
 
 @pytest.mark.slow
 def test_two_process_broadcast_and_allgather(tmp_path):
-    """Both DCN primitives execute for real; rank 1 never sees the input
+    """Both cross-process primitives execute for real; rank 1 never sees the input
     file, so its correct output proves the broadcast carried the query."""
     port = _free_port()
     cmds = [[sys.executable, _WORKER, str(i), "2", str(port),
@@ -68,7 +68,7 @@ def test_two_process_cli(tmp_path):
     rank 1 given a nonexistent input path (never read by design)."""
     port = _free_port()
     out = tmp_path / "out.txt"
-    base = [sys.executable, "-m", "psa_tpu.utils.cli", "--distributed",
+    base = [sys.executable, "-m", "psa.utils.cli", "--distributed",
             "--coordinator", f"localhost:{port}", "--num-processes", "2",
             "--platform", "cpu", "--backend", "xla", "-o", str(out)]
     cmds = [base + ["--process-id", "0", GOLDEN_INPUT],
@@ -88,7 +88,7 @@ def test_two_process_bad_input_fails_all_ranks(tmp_path):
     stranding rank 1 inside broadcast_one_to_all."""
     port = _free_port()
     out = tmp_path / "out.txt"
-    base = [sys.executable, "-m", "psa_tpu.utils.cli", "--distributed",
+    base = [sys.executable, "-m", "psa.utils.cli", "--distributed",
             "--coordinator", f"localhost:{port}", "--num-processes", "2",
             "--platform", "cpu", "--backend", "xla", "-o", str(out)]
     cmds = [base + ["--process-id", str(i), "/nonexistent/input.txt"]
@@ -103,7 +103,7 @@ def test_two_process_bad_input_fails_all_ranks(tmp_path):
 def test_psa_dist_launcher(tmp_path):
     """The mpiexec analog end-to-end: psa-dist -np 2 on the golden input."""
     out = tmp_path / "out.txt"
-    cmd = [sys.executable, "-m", "psa_tpu.utils.launcher", "-np", "2",
+    cmd = [sys.executable, "-m", "psa.utils.launcher", "-np", "2",
            "--platform", "cpu", GOLDEN_INPUT, "--backend", "xla",
            "-o", str(out), "--quiet"]
     p = subprocess.run(cmd, capture_output=True, text=True, timeout=180,
@@ -118,8 +118,8 @@ def test_two_process_batch_mode(tmp_path):
     """--distributed --batch: case list broadcasts from rank 0 (rank 1 has
     no input file), contiguous case blocks per rank, gathered outputs
     byte-match single-process --batch mode."""
-    from psa_tpu.utils.cli import main
-    from psa_tpu.utils.generator import random_sequences
+    from psa.utils.cli import main
+    from psa.utils.generator import random_sequences
 
     recs = []
     for seed, (n1, n2, mode) in enumerate(
@@ -142,7 +142,7 @@ def test_two_process_batch_mode(tmp_path):
 
     port = _free_port()
     outdir = tmp_path / "outs"
-    base = [sys.executable, "-m", "psa_tpu.utils.cli", "--distributed",
+    base = [sys.executable, "-m", "psa.utils.cli", "--distributed",
             "--batch", "--lenient", "--coordinator", f"localhost:{port}",
             "--num-processes", "2", "--platform", "cpu",
             "--backend", "native", "-o", str(outdir)]
@@ -160,8 +160,8 @@ def test_two_process_batch_sharded_local_mesh(tmp_path):
     """--distributed --batch --sharded: case blocks across processes AND
     each process shards its block's query axis over its 4 local virtual
     devices through the mesh-sharded exact device path."""
-    from psa_tpu.utils.cli import main
-    from psa_tpu.utils.generator import main as gen_main
+    from psa.utils.cli import main
+    from psa.utils.generator import main as gen_main
 
     inp = tmp_path / "cases.txt"
     assert gen_main(["400", "60", "-o", str(inp), "--cases", "4",
@@ -172,7 +172,7 @@ def test_two_process_batch_sharded_local_mesh(tmp_path):
 
     port = _free_port()
     outdir = tmp_path / "outs"
-    base = [sys.executable, "-m", "psa_tpu.utils.cli", "--distributed",
+    base = [sys.executable, "-m", "psa.utils.cli", "--distributed",
             "--batch", "--sharded", "--coordinator", f"localhost:{port}",
             "--num-processes", "2", "--platform", "cpu",
             "--backend", "pallas", "-o", str(outdir), "--quiet"]
@@ -192,8 +192,8 @@ def test_two_process_batch_sharded_local_mesh(tmp_path):
 def test_four_process_batch_mode(tmp_path):
     """4-rank --distributed --batch with 5 cases: the contiguous case
     partition (remainder to the last rank) must reassemble in order."""
-    from psa_tpu.utils.cli import main
-    from psa_tpu.utils.generator import main as gen_main
+    from psa.utils.cli import main
+    from psa.utils.generator import main as gen_main
 
     inp = tmp_path / "cases.txt"
     assert gen_main(["400", "60", "-o", str(inp), "--cases", "5",
@@ -205,7 +205,7 @@ def test_four_process_batch_mode(tmp_path):
 
     port = _free_port()
     outdir = tmp_path / "outs"
-    base = [sys.executable, "-m", "psa_tpu.utils.cli", "--distributed",
+    base = [sys.executable, "-m", "psa.utils.cli", "--distributed",
             "--batch", "--coordinator", f"localhost:{port}",
             "--num-processes", "4", "--platform", "cpu",
             "--backend", "native", "-o", str(outdir), "--quiet"]
@@ -225,7 +225,7 @@ def test_two_process_batch_bad_input_fails_all_ranks(tmp_path):
     preceding the case broadcast fails every rank promptly (exit 2)."""
     port = _free_port()
     outdir = tmp_path / "outs"
-    base = [sys.executable, "-m", "psa_tpu.utils.cli", "--distributed",
+    base = [sys.executable, "-m", "psa.utils.cli", "--distributed",
             "--batch", "--coordinator", f"localhost:{port}",
             "--num-processes", "2", "--platform", "cpu",
             "--backend", "native", "-o", str(outdir)]
@@ -240,7 +240,7 @@ def test_two_process_batch_bad_input_fails_all_ranks(tmp_path):
 @pytest.mark.slow
 def test_two_process_four_devices_each(tmp_path):
     """Pod shape: 2 processes x 4 local devices = 8-device global mesh.
-    The offset axis shards over local (ICI-analog) AND cross-process (DCN)
+    The offset axis shards over local AND cross-process
     device boundaries in one mesh; golden byte parity proves the merge."""
     port = _free_port()
     cmds = [[sys.executable, _WORKER, str(i), "2", str(port),

@@ -1,16 +1,16 @@
-"""Golden parity: the engine must bit-match the reference's bundled output.txt.
+"""Golden parity: the engine must bit-match the committed golden output.
 
-The bundled workload (input.txt): weights 1 3 4 2, Seq1 len 9711, Seq2 len
-2131, mode minimum -> mutant with pos 144 -> 'E', offset 4505, score -4879
-(verified against output.txt byte-for-byte, including the missing trailing
-newline)."""
+The seeded workload (tests/data/golden_input.txt, reference-sized): weights
+1 3 4 2, Seq1 len 9711, Seq2 len 2131, mode minimum -> mutant with pos 26 ->
+'C', offset 6132, score -4688 (the numpy oracle and the native engine agree
+byte-for-byte, including the missing trailing newline)."""
 
 import numpy as np
 import pytest
 
-from psa_tpu.core.alphabet import encode
-from psa_tpu.models.search import AlignmentSearchEngine
-from psa_tpu.utils.io import format_output
+from psa.core.alphabet import encode
+from psa.models.search import AlignmentSearchEngine
+from psa.utils.io import format_output
 
 
 @pytest.fixture(scope="module")
@@ -20,10 +20,10 @@ def golden_result(golden_query):
 
 
 def test_golden_fields(golden_result):
-    assert golden_result.offset == 4505
-    assert golden_result.char_offset == 144
-    assert golden_result.sub_char == "E"
-    assert golden_result.score == -4879.0
+    assert golden_result.offset == 6132
+    assert golden_result.char_offset == 26
+    assert golden_result.sub_char == "C"
+    assert golden_result.score == -4688.0
 
 
 def test_golden_bytes(golden_query, golden_result, golden_expected):
@@ -39,7 +39,7 @@ def test_golden_max_mode_self_consistent(golden_query):
     eng = AlignmentSearchEngine(golden_query.weights, True, backend="numpy")
     c1, c2 = encode(golden_query.seq1), encode(golden_query.seq2)
     res = eng.search_codes(c1, c2)
-    from psa_tpu.core.oracle import score_offset_sequential
+    from psa.core.oracle import score_offset_sequential
 
     total, char_off, sub_code, _ = score_offset_sequential(c1, c2, eng.tables, res.offset)
     assert total == res.score
@@ -47,16 +47,15 @@ def test_golden_max_mode_self_consistent(golden_query):
     assert sub_code == res.sub_code
 
 
-# Pinned MAX-mode golden for input.txt.  The reference ships no max-mode
-# output file (BASELINE.json config 1 names both modes), so the winner tuple
-# is frozen here as committed constants, derived 2026-08-20 from the numpy
-# oracle (offset_stats_numpy + select_best) and independently confirmed by
-# the sequential scorer, the native C++ engine, and the xla engine.  The
+# Pinned MAX-mode golden for the golden input.  No max-mode output file is
+# committed, so the winner tuple is frozen here as constants, derived from
+# the numpy oracle (offset_stats_numpy + select_best) and independently
+# confirmed by the native C++ engine.  The
 # substitution engine's max half (get_max_substitute, cuda_funcs.cu:320-345)
 # otherwise has no end-to-end anchor: a max-mode-only table regression would
 # pass every min-mode golden test.
-GOLDEN_MAX = {"offset": 2335, "char_offset": 0, "sub_char": "V",
-              "score": -4587.0}
+GOLDEN_MAX = {"offset": 5852, "char_offset": 10, "sub_char": "K",
+              "score": -4354.0}
 
 
 @pytest.mark.parametrize("backend",
@@ -69,16 +68,16 @@ def test_golden_max_mode_pinned(golden_query, backend):
     assert res.sub_char == GOLDEN_MAX["sub_char"]
     assert res.score == GOLDEN_MAX["score"]
     # the printed line the reference would write for this result
-    from psa_tpu.utils.io import format_output
+    from psa.utils.io import format_output
 
     out = format_output(res.mutant(golden_query.seq2), res.offset, res.score)
-    assert out.endswith("2335 -4587")
+    assert out.endswith("5852 -4354")
 
 
 def test_golden_max_mode_pinned_sharded(golden_query):
     """The same pinned MAX winner through the mesh-sharded search path."""
-    from psa_tpu.core.tables import build_tables
-    from psa_tpu.parallel.mesh import make_mesh, search_sharded
+    from psa.core.tables import build_tables
+    from psa.parallel.mesh import make_mesh, search_sharded
 
     import jax
 

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 
 from conftest import GOLDEN_INPUT, random_codes
-from psa_tpu.models.search import AlignmentSearchEngine, native_available
+from psa.models.search import AlignmentSearchEngine, native_available
 
 pytestmark = pytest.mark.skipif(not native_available(),
                                 reason="native engine unavailable")
@@ -68,7 +68,7 @@ def test_hybrid_winner_in_host_block():
 def test_hybrid_no_mutation_raises():
     """Out-of-range chars everywhere: neither block finds a legal
     substitution -> NoMutationFound from the merged search."""
-    from psa_tpu.core.result import NoMutationFound
+    from psa.core.result import NoMutationFound
 
     eng = AlignmentSearchEngine(W, True, backend="hybrid", device_share=50,
                                 strict_alphabet=False)
@@ -92,7 +92,7 @@ def test_hybrid_auto_share_uses_crossover():
 
 def test_cli_device_share(tmp_path, golden_expected):
     """--device-share 50 through the CLI byte-matches the golden output."""
-    from psa_tpu.utils.cli import main
+    from psa.utils.cli import main
 
     out = tmp_path / "out.txt"
     rc = main([str(GOLDEN_INPUT), "-o", str(out), "--device-share", "50",
@@ -102,7 +102,7 @@ def test_cli_device_share(tmp_path, golden_expected):
 
 
 def test_cli_device_share_minus100_is_sequential(tmp_path, golden_expected):
-    from psa_tpu.utils.cli import main
+    from psa.utils.cli import main
 
     out = tmp_path / "out.txt"
     rc = main([str(GOLDEN_INPUT), "-o", str(out), "--device-share", "-100",
@@ -112,7 +112,7 @@ def test_cli_device_share_minus100_is_sequential(tmp_path, golden_expected):
 
 
 def test_cli_device_share_validation(capsys):
-    from psa_tpu.utils.cli import main
+    from psa.utils.cli import main
 
     assert main(["x.txt", "--device-share", "150"]) == 2
     assert main(["x.txt", "--device-share", "50", "--backend", "native"]) == 2

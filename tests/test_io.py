@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from psa_tpu.utils.io import format_output, parse_input
+from psa.utils.io import format_output, parse_input
 
 
 def test_parse_basic():
@@ -44,14 +44,14 @@ def test_parse_rejects_non_finite_weights(bad):
 
 
 def test_parse_cases_rejects_non_finite_weights():
-    from psa_tpu.utils.io import parse_cases
+    from psa.utils.io import parse_cases
 
     with pytest.raises(ValueError, match="finite"):
         parse_cases("1 2 3 4 AAA AA minimum  1 nan 3 4 BBB BB maximum")
 
 
 def test_build_tables_rejects_non_finite_weights():
-    from psa_tpu.core.tables import build_tables
+    from psa.core.tables import build_tables
 
     with pytest.raises(ValueError, match="finite"):
         build_tables(np.array([1.0, np.inf, 3.0, 4.0]), is_max=False)
@@ -60,8 +60,8 @@ def test_build_tables_rejects_non_finite_weights():
 
 
 def test_search_batch_rejects_non_finite_weights():
-    from psa_tpu.models.batch import search_batch
-    from psa_tpu.utils.io import Query
+    from psa.models.batch import search_batch
+    from psa.utils.io import Query
 
     q = Query(weights=np.array([1.0, np.nan, 3.0, 4.0]),
               seq1="ABCD", seq2="AB", is_max=False)

@@ -4,8 +4,9 @@ with the same program)."""
 
 import numpy as np
 
-from psa_tpu.parallel import multihost
-from psa_tpu.utils.generator import random_sequences, write_input_file
+from conftest import GOLDEN_INPUT
+from psa.parallel import multihost
+from psa.utils.generator import random_sequences, write_input_file
 
 
 def test_initialize_single_process_noop():
@@ -20,7 +21,7 @@ def test_broadcast_query_passthrough(golden_query):
 def test_run_distributed_search_single_process(tmp_path, golden_expected):
     out = tmp_path / "out.txt"
     rc = multihost.run_distributed_search(
-        "/root/reference/input.txt", str(out), backend_kernel="xla")
+        GOLDEN_INPUT, str(out), backend_kernel="xla")
     assert rc == 0
     assert out.read_text() == golden_expected
 
@@ -32,7 +33,7 @@ def test_run_distributed_search_max_mode(tmp_path):
     out = tmp_path / "out.txt"
     rc = multihost.run_distributed_search(str(inp), str(out), backend_kernel="xla")
     assert rc == 0
-    from psa_tpu.models.search import AlignmentSearchEngine
+    from psa.models.search import AlignmentSearchEngine
 
     ref = AlignmentSearchEngine([2.0, 1.0, 0.5, 3.0], True, backend="numpy").search(s1, s2)
     mutant, tail = out.read_text().split("\n")
@@ -46,7 +47,7 @@ def test_run_distributed_batch_single_process(tmp_path, capsys):
     --json emits one object per case, quiet suppresses the summary."""
     import json
 
-    from psa_tpu.utils.cli import main
+    from psa.utils.cli import main
 
     recs = []
     for seed in range(3):

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from psa_tpu.core.alphabet import encode
-from psa_tpu.core.oracle import offset_stats_numpy, score_offset_sequential
-from psa_tpu.core.tables import build_tables
-from psa_tpu.models.search import AlignmentSearchEngine
+from psa.core.alphabet import encode
+from psa.core.oracle import offset_stats_numpy, score_offset_sequential
+from psa.core.tables import build_tables
+from psa.models.search import AlignmentSearchEngine
 
 from conftest import random_codes
 
@@ -14,7 +14,7 @@ from conftest import random_codes
 @pytest.fixture(scope="module", autouse=True)
 def lib():
     try:
-        from psa_tpu.native import get_lib
+        from psa.native import get_lib
 
         return get_lib()
     except Exception as e:  # toolchain missing -> skip module
@@ -22,7 +22,7 @@ def lib():
 
 
 def test_native_golden(golden_query, golden_expected):
-    from psa_tpu.utils.io import format_output
+    from psa.utils.io import format_output
 
     eng = AlignmentSearchEngine(golden_query.weights, golden_query.is_max,
                                 backend="native")
@@ -34,7 +34,7 @@ def test_native_golden(golden_query, golden_expected):
 @pytest.mark.parametrize("is_max", [True, False])
 @pytest.mark.parametrize("nthreads", [1, 4])
 def test_native_matches_oracle_random(is_max, nthreads):
-    from psa_tpu.native import search_native
+    from psa.native import search_native
 
     rng = np.random.default_rng(5 + is_max)
     tables = build_tables(np.array([1.0, 3.0, 4.0, 2.0]), is_max)
@@ -48,7 +48,7 @@ def test_native_matches_oracle_random(is_max, nthreads):
 
 
 def test_native_stats_contract():
-    from psa_tpu.native import offset_stats_native
+    from psa.native import offset_stats_native
 
     rng = np.random.default_rng(9)
     tables = build_tables(np.array([2.0, 0.5, 1.5, 3.0]), True)
@@ -61,7 +61,7 @@ def test_native_stats_contract():
 
 
 def test_native_score_offset_matches_python():
-    from psa_tpu.native import score_offset_native
+    from psa.native import score_offset_native
 
     rng = np.random.default_rng(17)
     tables = build_tables(np.array([1.25, 3.5, 4.75, 2.125]), False)

@@ -9,11 +9,11 @@ still reproduce the reference's sequential-semantics winner), and the
 import numpy as np
 import pytest
 
-from psa_tpu.core.oracle import (offset_stats_numpy, rescore_candidates,
+from psa.core.oracle import (offset_stats_numpy, rescore_candidates,
                                  score_offset_sequential)
-from psa_tpu.core.tables import build_tables
-from psa_tpu.models.search import AlignmentSearchEngine, resolve_auto
-from psa_tpu.ops.select import candidate_epsilon, select_best
+from psa.core.tables import build_tables
+from psa.models.search import AlignmentSearchEngine, resolve_auto
+from psa.ops.select import candidate_epsilon, select_best
 
 IRRATIONAL_WEIGHTS = [np.pi / 4, np.e / 7, np.sqrt(2) / 3, 1.0 / 3.0]
 
@@ -47,7 +47,7 @@ def test_massive_tie_irrational_weights(is_max):
     assert maxrank.shape[0] > 8192
     res = select_best(counts, maxrank, t, c1, c2)
 
-    from psa_tpu.native import search_native
+    from psa.native import search_native
 
     ref = search_native(c1, c2, t)   # full reference sequential semantics
     assert (res.offset, res.char_offset, res.sub_code) == (
@@ -87,18 +87,18 @@ def test_auto_backend_is_workload_aware():
     assert resolve_auto(100, 10) == "native"
     # large workload -> accelerator path when one exists; otherwise the
     # native host engine beats CPU conv at every size
-    assert resolve_auto(2_000_000, 10_000, platform="tpu") == "pallas"
-    from psa_tpu.models.search import native_available
+    assert resolve_auto(2_000_000, 10_000, accelerator=True) == "pallas"
+    from psa.models.search import native_available
     want_cpu = "native" if native_available() else "conv"
-    assert resolve_auto(2_000_000, 10_000, platform="cpu") == want_cpu
-    # no shape information -> platform default (old behavior)
-    assert resolve_auto(platform="tpu") == "pallas"
+    assert resolve_auto(2_000_000, 10_000, accelerator=False) == want_cpu
+    # no shape information -> platform default
+    assert resolve_auto(accelerator=True) == "pallas"
 
 
 def test_auto_threshold_env(monkeypatch):
     import importlib
 
-    import psa_tpu.config as cfg
+    import psa.config as cfg
 
     monkeypatch.setenv("PSA_AUTO_THRESHOLD", "1")
     try:
@@ -111,9 +111,9 @@ def test_auto_threshold_env(monkeypatch):
 def test_engine_auto_golden_uses_native(golden_query):
     eng = AlignmentSearchEngine(golden_query.weights, golden_query.is_max,
                                 backend="auto")
-    from psa_tpu.core.alphabet import encode
+    from psa.core.alphabet import encode
 
     c1, c2 = encode(golden_query.seq1), encode(golden_query.seq2)
     assert eng._resolve_backend(c1, c2) == "native"
     res = eng.search_codes(c1, c2)
-    assert res.offset == 4505 and res.score == -4879.0
+    assert res.offset == 6132 and res.score == -4688.0

@@ -13,9 +13,9 @@ import sys
 import numpy as np
 import pytest
 
-from psa_tpu.models.search import AlignmentSearchEngine
-from psa_tpu.utils.cli import main
-from psa_tpu.utils.generator import random_sequences
+from psa.models.search import AlignmentSearchEngine
+from psa.utils.cli import main
+from psa.utils.generator import random_sequences
 
 
 def _query_line(seed, n1=120, n2=30, weights="1 3 4 2", mode="minimum"):
@@ -125,7 +125,7 @@ def test_serve_line_reader_cap_and_eof_mid_buffer():
     unterminated line) arrives in between."""
     import os
 
-    from psa_tpu.utils.cli import _ServeLineReader
+    from psa.utils.cli import _ServeLineReader
 
     r, w = os.pipe()
     os.write(w, b"a\nb\nc\nd\ntail-no-newline")
@@ -146,7 +146,7 @@ def test_serve_line_reader_coalesces_available_lines():
     """Everything already on the fd lands in one chunk (up to the cap)."""
     import os
 
-    from psa_tpu.utils.cli import _ServeLineReader
+    from psa.utils.cli import _ServeLineReader
 
     r, w = os.pipe()
     os.write(w, b"1\n2\n3\n")
@@ -203,7 +203,7 @@ def test_serve_partial_line_does_not_block_complete_queries():
 
     q1, q2 = _query_line(0), _query_line(1)
     proc = subprocess.Popen(
-        [sys.executable, "-m", "psa_tpu.utils.cli", "--serve", "--quiet",
+        [sys.executable, "-m", "psa.utils.cli", "--serve", "--quiet",
          "--platform", "cpu", "--backend", "native"],
         stdin=subprocess.PIPE, stdout=subprocess.PIPE,
         stderr=subprocess.DEVNULL, text=True, bufsize=1)
@@ -230,7 +230,7 @@ def test_serve_subprocess_pipe_coalesces():
     every query is answered in order."""
     lines = [_query_line(seed) for seed in range(5)]
     proc = subprocess.run(
-        [sys.executable, "-m", "psa_tpu.utils.cli", "--serve", "--quiet",
+        [sys.executable, "-m", "psa.utils.cli", "--serve", "--quiet",
          "--serve-batch", "2", "--platform", "cpu", "--backend", "native"],
         input="\n".join(lines) + "\n", capture_output=True, text=True,
         timeout=300)

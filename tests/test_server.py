@@ -13,16 +13,16 @@ import threading
 
 import pytest
 
-from psa_tpu.models.search import AlignmentSearchEngine
-from psa_tpu.utils.generator import random_sequences
+from psa.models.search import AlignmentSearchEngine
+from psa.utils.generator import random_sequences
 
-GOLDEN_INPUT = "/root/reference/input.txt"
+from conftest import GOLDEN_INPUT
 
 
 class _Server:
     def __init__(self, *extra_args):
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "psa_tpu.utils.cli", "--serve",
+            [sys.executable, "-m", "psa.utils.cli", "--serve",
              "--listen", "127.0.0.1:0", "--backend", "native", *extra_args],
             stderr=subprocess.PIPE, text=True)
         line = self.proc.stderr.readline()
@@ -153,14 +153,14 @@ def test_tcp_json_replies():
         replies = _roundtrip(srv.port, [q, "bad"])
         assert len(replies) == 2
         obj = json.loads(replies[0])
-        assert obj["mutation_found"] and obj["offset"] == 4505
+        assert obj["mutation_found"] and obj["offset"] == 6132
         assert "error" in json.loads(replies[1])
 
 
 @pytest.mark.parametrize("addr", ["not-a-port", "host:port"])
 def test_tcp_bad_listen_address(addr):
     proc = subprocess.run(
-        [sys.executable, "-m", "psa_tpu.utils.cli", "--serve", "--listen",
+        [sys.executable, "-m", "psa.utils.cli", "--serve", "--listen",
          addr, "--backend", "native"],
         capture_output=True, text=True, timeout=60)
     assert proc.returncode == 2
@@ -172,7 +172,7 @@ def test_tcp_port_in_use():
     port = blocker.getsockname()[1]
     try:
         proc = subprocess.run(
-            [sys.executable, "-m", "psa_tpu.utils.cli", "--serve",
+            [sys.executable, "-m", "psa.utils.cli", "--serve",
              "--listen", f"127.0.0.1:{port}", "--backend", "native"],
             capture_output=True, text=True, timeout=60)
         assert proc.returncode == 2

@@ -4,9 +4,8 @@ must satisfy the kernel's alignment invariants, for arbitrary input sizes."""
 import numpy as np
 import pytest
 
-from psa_tpu.ops.common import bucket_len, pad_query, round_up
-from psa_tpu.ops.pallas_sweep import CHUNK, TILE_O, pick_tile, plan_shapes, size_tile
-from psa_tpu.parallel.mesh import pad_for_mesh
+from psa.ops.common import CHUNK, TILE_O, bucket_len, plan_shapes, round_up
+from psa.parallel.mesh import pad_for_mesh, pad_for_mesh_2d
 
 from conftest import random_codes
 
@@ -20,33 +19,24 @@ def test_plan_shapes_invariants():
         assert noff == n1 - n2 + 1
         assert noff_pad >= noff
         assert l2p >= n2 and l2p % CHUNK == 0
-        tile = pick_tile(noff_pad)
-        assert noff_pad % tile == 0
-        assert tile <= TILE_O
+        assert noff_pad % TILE_O == 0
         # every padded offset's full window fits in the padded seq1
-        assert l1k >= noff_pad + l2p
-        # padding waste bounded: < one tile
-        assert noff_pad - noff < size_tile(noff)
+        assert l1k == noff_pad + l2p
 
 
-def test_pick_tile_divides():
-    for extent in range(512, 64 * 1024, 512):
-        t = pick_tile(extent)
-        assert extent % t == 0 and 512 <= t <= TILE_O
+def test_plan_shapes_padding_below_one_block():
+    """Padding waste is below one kernel block on each axis."""
+    for n1, n2 in [(1, 1), (TILE_O, 1), (TILE_O + 1, 2), (1000, 999),
+                   (131071 + 8191, 8192), (10**6, 2048)]:
+        noff, noff_pad, l2p, _ = plan_shapes(n1, n2)
+        assert 0 <= noff_pad - noff < TILE_O
+        assert 0 <= l2p - max(n2, CHUNK) < CHUNK
 
 
-def test_pick_chunk_divides():
-    from psa_tpu.ops.pallas_sweep import MAX_CHUNK, pick_chunk
-
-    for nchunks in range(1, 200):
-        l2p = nchunks * CHUNK
-        c = pick_chunk(l2p)
-        assert l2p % c == 0 and CHUNK <= c <= MAX_CHUNK
-        # maximality: no larger supported chunk divides l2p
-        cc = c * 2
-        while cc <= MAX_CHUNK:
-            assert l2p % cc != 0
-            cc *= 2
+def test_kernel_block_is_power_of_two():
+    """The Triton route takes power-of-two blocks only."""
+    for n in (TILE_O, CHUNK):
+        assert n > 0 and n & (n - 1) == 0
 
 
 def test_pad_for_mesh_invariants():
@@ -60,7 +50,8 @@ def test_pad_for_mesh_invariants():
             c1p, c2p, noff = pad_for_mesh(c1, c2, n_shards)
             noff_pad = c1p.shape[0] - c2p.shape[0]
             assert noff == n1 - n2 + 1
-            assert noff_pad % (n_shards * 512) == 0
+            assert noff_pad % (n_shards * TILE_O) == 0
+            assert c2p.shape[0] % CHUNK == 0
             per_shard = noff_pad // n_shards
             # each shard's window [o0, o0 + per_shard + l2p) fits
             assert (n_shards - 1) * per_shard + per_shard + c2p.shape[0] \
@@ -85,7 +76,7 @@ def test_round_batch_invariants():
     """Microbatch rounding: power of two, >= n, capped but never below n,
     and 1 maps to 1 (dummy rows sweep their full shape — a padded-to-8
     oversized single query would run its sweep eight times)."""
-    from psa_tpu.models.batch import _round_batch
+    from psa.models.batch import _round_batch
 
     assert _round_batch(1, 1024) == 1
     for cap in (8, 100, 1024):
@@ -98,25 +89,24 @@ def test_round_batch_invariants():
                 assert r <= cap                 # compile-size bounded
 
 
-def test_batched_auto_tile_respects_vmem_cap():
-    """The batched kernel's auto tile must keep (measured single-kernel
-    request + expand stack) under the VMEM request cap for any shape, and
-    must still divide noff_pad."""
-    from psa_tpu.ops.pallas_sweep import (
-        _VMEM_REQUEST_CAP, _single_limit_bytes, batched_plan)
+@pytest.mark.parametrize("n_op,n_ch", [(1, 2), (2, 2), (1, 4), (4, 1)])
+def test_pad_for_mesh_2d_invariants(n_op, n_ch):
+    rng = np.random.default_rng(3)
+    for _ in range(20):
+        n2 = int(rng.integers(1, 3000))
+        n1 = n2 + int(rng.integers(0, 50000))
+        c1p, c2p, noff = pad_for_mesh_2d(random_codes(rng, n1),
+                                         random_codes(rng, n2), n_op, n_ch)
+        noff_pad = c1p.shape[0] - c2p.shape[0]
+        assert noff == n1 - n2 + 1 and noff_pad >= noff
+        assert noff_pad % (n_op * n_ch * TILE_O) == 0
+        assert c2p.shape[0] % (n_ch * CHUNK) == 0
 
-    rng = np.random.default_rng(2)
-    for _ in range(200):
-        l2p = 256 * int(rng.integers(1, 1200))
-        noff_pad = 512 * int(rng.integers(1, 3000))
-        t, _, ex = batched_plan(noff_pad, l2p, 256)
-        assert noff_pad % t == 0
-        assert t <= 32768
-        if t > 512:
-            assert _single_limit_bytes(t) + ex <= _VMEM_REQUEST_CAP
+
+def test_microbatch_spans_partition():
     """The pipeline's span arithmetic must partition [0, B) exactly —
     tested on the real helper batched_search_exact iterates over."""
-    from psa_tpu.models.batch import microbatch_spans
+    from psa.models.batch import microbatch_spans
 
     for b_n in (1, 7, 8, 1000, 1024, 2049):
         for mb in (1, 8, 1000, 1024):

@@ -1,21 +1,20 @@
 """Dedup-Seq1 wire variant (many Seq2 reads vs one Seq1 reference).
 
 When every query in a bucket shares Seq1, the batch path ships it ONCE per
-workload and broadcasts on device (models/batch.pack_query_inputs_shared)
-— per-query upload bytes drop ~3x, which is sustained serve throughput on
-the bandwidth-bound transport.  Results must be bit-identical to the
-per-row path and the oracle.
+workload and every query's kernel program reads that one row
+(models/batch.pack_query_inputs_shared) — per-query upload bytes drop ~3x.
+Results must be bit-identical to the per-row path and the oracle.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from psa_tpu.core.alphabet import pad_codes
-from psa_tpu.core.tables import build_tables
-from psa_tpu.models import batch as bm
-from psa_tpu.models.search import AlignmentSearchEngine
-from psa_tpu.ops.pallas_sweep import plan_shapes
+from psa.core.alphabet import pad_codes
+from psa.core.tables import build_tables
+from psa.models import batch as bm
+from psa.models.search import AlignmentSearchEngine
+from psa.ops.common import plan_shapes
 
 from conftest import random_codes
 
@@ -68,7 +67,7 @@ def test_shared_vs_per_row_bit_identical():
     rs_rows = bm.batched_search_exact(c1b, c2b, noffs, n2s, t,
                                       interpret=True, shared_s1=False)
     assert len(rs_shared) == len(rs_rows) == b
-    from psa_tpu.core.result import NoMutationFound
+    from psa.core.result import NoMutationFound
 
     ref_eng = AlignmentSearchEngine(w, True, backend="numpy",
                                     strict_alphabet=False)
@@ -93,8 +92,8 @@ def test_shared_vs_per_row_bit_identical():
 def test_search_batch_shared_seq1_end_to_end():
     """search_batch with one reference Seq1 and many reads routes through
     the dedup variant and matches per-query engine results."""
-    from psa_tpu.core.alphabet import decode
-    from psa_tpu.utils.io import Query
+    from psa.core.alphabet import decode
+    from psa.utils.io import Query
 
     rng = np.random.default_rng(303)
     n1, n2 = 800, 110
@@ -117,7 +116,7 @@ def test_shared_s1_sharded_mesh_exact():
     operand, batch axis sharded, results oracle-exact."""
     import jax
 
-    from psa_tpu.parallel.mesh import make_mesh
+    from psa.parallel.mesh import make_mesh
 
     rng = np.random.default_rng(505)
     b, n1, n2 = 6, 700, 120
@@ -141,14 +140,12 @@ def test_shared_s1_sharded_mesh_exact():
 
 
 def test_shared_kernel_multi_tile_bit_identical():
-    """The shared-Seq1 COMPUTE-dedup kernel (grid (ntiles, B), window
-    expanded once per tile into scratch that persists across the B grid
-    steps) must bit-match the plain batched kernel across multiple tiles
-    and queries — the cross-program scratch reuse is the load-bearing
-    part."""
+    """The shared-Seq1 kernel operand (ONE Seq1 row, read by every query's
+    programs) must bit-match the per-row operand across multiple tiles,
+    chunks and queries."""
     import jax.numpy as jnp
 
-    from psa_tpu.ops import pallas_sweep as ps
+    from psa.ops import pallas_sweep as ps
 
     rng = np.random.default_rng(606)
     b, n1, n2 = 4, 2600, 500
@@ -156,25 +153,15 @@ def test_shared_kernel_multi_tile_bit_identical():
     c1p = pad_codes(random_codes(rng, n1, 0.05), l1k)
     c2b = np.stack([pad_codes(random_codes(rng, n2, 0.05), l2p)
                     for _ in range(b)])
-    chunk = ps.pick_chunk(l2p)
-    nck = l2p // chunk
-    code_tab = np.asarray(build_tables(
+    code_t = ps.code_table_t(build_tables(
         np.array([1.0, 3.0, 4.0, 2.0]), False).code)
-    pc = code_tab.astype(np.int8)[:, c2b.astype(np.int32)]
-    pc_all = (pc.transpose(1, 0, 2).reshape(b, 32, nck, chunk)
-              .transpose(0, 2, 1, 3)[:, :, :, ::-1])
-    s1c = np.broadcast_to(c1p.astype(np.int8)[None], (4, l1k))
-    s1c_all = np.broadcast_to(
-        np.concatenate([c1p] * b).astype(np.int8)[None], (4, b * l1k))
-    for tile in (512, 1024):
-        assert noff_pad // tile >= 2   # multi-tile is the point
-        ref = np.asarray(ps._sweep_pallas_batched(
-            jnp.asarray(s1c_all), jnp.asarray(pc_all), b, noff_pad, l2p,
-            True, tile))
-        got = np.asarray(ps._sweep_pallas_batched_shared(
-            jnp.asarray(s1c), jnp.asarray(pc_all), b, noff_pad, l2p,
-            True, tile))
-        np.testing.assert_array_equal(got, ref)
+    assert noff_pad // 256 >= 2   # multi-tile is the point
+    ref = np.asarray(ps.sweep_stats5(
+        jnp.asarray(np.broadcast_to(c1p, (b, l1k))), jnp.asarray(c2b),
+        code_t, interpret=True))
+    got = np.asarray(ps.sweep_stats5(
+        jnp.asarray(c1p[None]), jnp.asarray(c2b), code_t, interpret=True))
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_shared_s1_multi_microbatch_spans():

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from psa_tpu.core import tables as T
-from psa_tpu.core.alphabet import HYPHEN_CODE, NUM_LETTERS, OTHER_CODE, PAD_CODE, encode
+from psa.core import tables as T
+from psa.core.alphabet import HYPHEN_CODE, NUM_LETTERS, OTHER_CODE, PAD_CODE, encode
 
 
 def code(ch: str) -> int:

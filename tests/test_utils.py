@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from psa_tpu.core.alphabet import encode
-from psa_tpu.core.tables import build_tables
-from psa_tpu.models.search import AlignmentSearchEngine
-from psa_tpu.utils.generator import random_sequences, write_input_file
-from psa_tpu.utils.io import parse_input
-from psa_tpu.utils.pretty import render, render_sign_table, score_and_signs
-from psa_tpu.utils.profiling import Timer, pair_evals, throughput
+from psa.core.alphabet import encode
+from psa.core.tables import build_tables
+from psa.models.search import AlignmentSearchEngine
+from psa.utils.generator import random_sequences, write_input_file
+from psa.utils.io import parse_input
+from psa.utils.pretty import render, render_sign_table, score_and_signs
+from psa.utils.profiling import Timer, pair_evals, throughput
 
 
 def test_sign_table_render_shape_and_rules():
@@ -54,7 +54,7 @@ def test_generator_reproducible_and_valid():
     b1, b2 = random_sequences(100, 30, seed=7, hyphen_p=0.2)
     assert a1 == b1 and a2 == b2
     assert "-" in a1 + a2
-    from psa_tpu.core.alphabet import validate
+    from psa.core.alphabet import validate
 
     assert validate(a1) and validate(a2)
 
@@ -84,7 +84,7 @@ def test_config_env_override(monkeypatch):
     import importlib
 
     monkeypatch.setenv("PSA_MAX_CANDIDATES", "7")
-    import psa_tpu.config as cfg
+    import psa.config as cfg
 
     importlib.reload(cfg)
     assert cfg.EngineConfig().max_candidates == 7
@@ -94,8 +94,8 @@ def test_config_env_override(monkeypatch):
 
 def test_psa_gen_cli(tmp_path):
     """psa-gen writes parseable reference-format files, incl. multi-case."""
-    from psa_tpu.utils.generator import main as gen_main
-    from psa_tpu.utils.io import read_cases, read_input
+    from psa.utils.generator import main as gen_main
+    from psa.utils.io import read_cases, read_input
 
     out = tmp_path / "in.txt"
     assert gen_main(["300", "50", "-o", str(out), "--cases", "3",
@@ -112,87 +112,11 @@ def test_psa_gen_cli(tmp_path):
     assert gen_main(["50", "300", "-o", str(out)]) == 2   # n2 > n1
 
 
-def test_health_probe_short_circuits_on_cpu_pin():
-    """With the process pinned to CPU (conftest), effective_platform must
-    answer without spawning a probe subprocess."""
-    import importlib
-    import os
-
-    import pytest
-
-    if os.environ.get("PSA_TEST_PLATFORM", "cpu") != "cpu":
-        pytest.skip("requires the forced-CPU pin (real-hardware suite runs "
-                    "without it, so the probe legitimately runs)")
-
-    from psa_tpu.utils import health
-
-    importlib.reload(health)   # clear the module cache
-
-    def boom(*a, **k):
-        raise AssertionError("probe subprocess must not run when CPU-pinned")
-
-    health.subprocess = type("S", (), {"run": staticmethod(boom)})()
-    assert health.effective_platform() == "cpu"
-    assert not health.was_degraded()
-    importlib.reload(health)
-
-
-def test_health_probe_skips_subprocess_when_backend_initialized(monkeypatch):
-    """If in-process device init already completed, the probe must answer
-    from it instead of paying a duplicate init in a subprocess."""
-    import importlib
-
-    from psa_tpu.utils import health
-
-    importlib.reload(health)
-    monkeypatch.setattr(
-        health, "_configured_platforms", lambda: "fake_accel,cpu")
-    monkeypatch.setattr(health, "_initialized_backend", lambda: "tpu")
-
-    def boom(*a, **k):
-        raise AssertionError("no probe subprocess for an initialized backend")
-
-    monkeypatch.setattr(health.subprocess, "run", boom)
-    assert health.effective_platform() == "tpu"
-    assert not health.was_degraded()
-    importlib.reload(health)
-
-
-def test_health_probe_timeout_degrades_to_cpu(monkeypatch):
-    """A probe timeout must pin the process to CPU and flag degradation."""
-    import importlib
-    import subprocess as sp
-
-    import jax
-
-    from psa_tpu.utils import health
-
-    importlib.reload(health)
-    monkeypatch.setattr(
-        health, "_configured_platforms", lambda: "fake_accel,cpu")
-    # simulate the UNinitialized-process case even when the test session
-    # already initialized the CPU backend
-    monkeypatch.setattr(health, "_initialized_backend", lambda: None)
-
-    def fake_run(*a, **k):
-        raise sp.TimeoutExpired(cmd="probe", timeout=k.get("timeout", 0))
-
-    monkeypatch.setattr(health.subprocess, "run", fake_run)
-    assert health.effective_platform(deadline_s=0.01) == "cpu"
-    assert health.was_degraded()
-    assert jax.config.jax_platforms == "cpu"
-    # cached afterwards: no further probe attempts
-    monkeypatch.setattr(health.subprocess, "run",
-                        lambda *a, **k: (_ for _ in ()).throw(AssertionError))
-    assert health.effective_platform() == "cpu"
-    importlib.reload(health)
-
-
 def test_encode_batch_padded_matches_per_query():
     """Batch encode (int8 wire format) == per-sequence encode + pad."""
     import numpy as np
 
-    from psa_tpu.core.alphabet import encode, encode_batch_padded, pad_codes
+    from psa.core.alphabet import encode, encode_batch_padded, pad_codes
 
     seqs = ["ABC-Z", "", "QWERTY", "A" * 64, "-" * 3]
     out = encode_batch_padded(seqs, 64)
@@ -204,7 +128,7 @@ def test_encode_batch_padded_matches_per_query():
 def test_validate_batch_matches_per_query():
     import numpy as np
 
-    from psa_tpu.core.alphabet import validate, validate_batch
+    from psa.core.alphabet import validate, validate_batch
 
     seqs = ["ABC", "", "A?C", "abc", "----", "Z" * 100, "Z" * 99 + "?"]
     got = validate_batch(seqs)
@@ -218,7 +142,7 @@ def test_validate_batch_matches_per_query():
 def test_build_tables_cached_identity_and_equality():
     import numpy as np
 
-    from psa_tpu.core.tables import build_tables, build_tables_cached
+    from psa.core.tables import build_tables, build_tables_cached
 
     w = np.array([1.0, 3.0, 4.0, 2.0])
     a = build_tables_cached(w, False)

@@ -12,11 +12,11 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from psa_tpu.utils.generator import random_sequences
-from psa_tpu.utils.io import (Query, _parse_query_lines_native,
+from psa.utils.generator import random_sequences
+from psa.utils.io import (Query, _parse_query_lines_native,
                               _parse_query_lines_py, parse_query_lines)
 
-native = pytest.importorskip("psa_tpu.native")
+native = pytest.importorskip("psa.native")
 if not native.available():
     pytest.skip("native library unavailable (no g++?)", allow_module_level=True)
 
@@ -95,7 +95,7 @@ def test_parse_query_lines_entry_point():
 
 
 def test_encode_padded_native_matches_numpy():
-    from psa_tpu.core.alphabet import _ENC8, PAD_CODE, encode_batch_padded
+    from psa.core.alphabet import _ENC8, PAD_CODE, encode_batch_padded
 
     rng = np.random.default_rng(3)
     seqs = []
@@ -118,7 +118,7 @@ def test_encode_padded_native_matches_numpy():
 
 
 def test_encode_padded_overlong_raises():
-    from psa_tpu.core.alphabet import encode_batch_padded
+    from psa.core.alphabet import encode_batch_padded
 
     with pytest.raises(ValueError, match="exceeds padded length"):
         encode_batch_padded(["ABCDE"], 4)
@@ -126,8 +126,8 @@ def test_encode_padded_overlong_raises():
 
 @pytest.mark.parametrize("n", [6, 12, 5, 7, 31])
 def test_pack5_native_matches_numpy(n):
-    from psa_tpu.core.alphabet import PAD_CODE
-    from psa_tpu.models.batch import _PACK, _packed_words, pack_code_rows
+    from psa.core.alphabet import PAD_CODE
+    from psa.models.batch import _PACK, _packed_words, pack_code_rows
 
     rng = np.random.default_rng(n)
     codes = rng.integers(0, 29, (9, n)).astype(np.int8)
